@@ -6,9 +6,8 @@
 # batch 64, loss-scale 65536 with growth/backoff, 2 warmup epochs,
 # SpecAugment on) mapped onto this framework's knobs, plus what the
 # reference parsed but never ran: NG-SGD preconditioning and the TDNN-F
-# semi-orthogonal constraint.  On a single v5e chip --batch 128 is the
-# measured throughput sweet spot (docs/PERFORMANCE.md); keep 64 for
-# recipe parity or when sharing HBM.
+# semi-orthogonal constraint.  --batch 128 is the benchmark's batch; 64
+# keeps recipe parity.  The batch that fills one H100 is not measured yet.
 #
 # Usage: configs/train_flagship.sh <egs-glob> <den.fst> [extra tools/train.py args]
 set -euo pipefail

@@ -654,8 +654,7 @@ const float *cegs_sup_deriv_weights(CegsParser *p) {
 
 // Packed per-example scalar metadata: ONE ctypes round trip instead of
 // ~15 (each call costs ~1 us of ctypes dispatch; at 128-example batches
-// the scalar getters were a measurable slice of the host loop —
-// docs/PERFORMANCE.md "production loop re-measured", r5).  Layout
+// the scalar getters were a measurable slice of the host loop).  Layout
 // (int32): [0]=num_inputs [1]=fst_num_states [2]=fst_start
 // [3]=num_arcs [4]=num_finals [5]=num_sequences [6]=frames_per_seq
 // [7]=label_dim [8]=end2end [9]=dw_fmt [10]=sup_num_indexes

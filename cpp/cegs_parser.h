@@ -1,6 +1,6 @@
 // cegs_parser — native Kaldi NnetChainExample binary ark parser (C ABI).
 //
-// TPU-native analog of the reference's pure-Go parser
+// Native analog of the reference's pure-Go parser
 // (ref: /root/reference/internal/parser/{parser,matrix,fst}.go): the hot
 // data-ingestion path is native code; Python binds via ctypes and falls
 // back to the pure-Python parser when the shared library is absent.

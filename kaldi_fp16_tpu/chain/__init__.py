@@ -1,6 +1,6 @@
 """LF-MMI "chain" objective: numerator/denominator forward-backward.
 
-TPU-first redesign of the reference chain stack
+Redesign of the reference chain stack
 (ref: internal/nnet/{chain_loss,denominator,backward}.go,
 cpp/cuda/{chain,chain_den,chain_backward,chain_det}.cu):
 

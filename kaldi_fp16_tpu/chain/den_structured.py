@@ -6,9 +6,8 @@ over left-to-right HMM chains: most states sit on short linear chains
 phone-start transitions (ref: internal/nnet/denominator.go:83-100 models
 the same graph; docs report den.fst = 7052 states / 113,380 arcs).  The
 generic blocked-one-hot kernels (denominator.py) treat every arc as a
-gather + matmul-reduce and are bound by the TPU gather engine (~276 GB/s
-index-rate — docs/PERFORMANCE.md roofline).  This module removes the
-gathers by *decomposing* the graph:
+gather + matmul-reduce, so their scans are bound by the gather index
+rate.  This module removes the gathers by *decomposing* the graph:
 
   1. **Self-loops** (src == dst): one masked elementwise multiply on a
      [L, F] chain layout (L = padded chain length, F = #chains).
@@ -19,7 +18,7 @@ gathers by *decomposing* the graph:
      out-arc it would not be chain-terminal; if dst had another non-self
      in-arc the chain-edge uniqueness condition would already have failed)
      — so the whole residual class is one dense [F, F] matrix applied per
-     frame on the MXU, with the emission factored out per destination
+     frame as one matmul, with the emission factored out per destination
      (requires every residual arc into a given dst to carry the same pdf,
      which holds for Kaldi chain topologies where non-self-loop arcs into
      an HMM state carry that state's forward-pdf).
@@ -29,7 +28,7 @@ a handful of static slices — the forward AND backward recursions then
 contain no gathers or scatters at all, only elementwise ops, shifts, and
 one dense matmul per step.  Posterior accumulation reduces ~2S per-slot
 values (instead of ~A per-arc values, a 8-16x traffic cut at production
-scale) through the same blocked one-hot MXU reduction the generic path
+scale) through the same blocked one-hot matmul reduction the generic path
 uses.
 
 Falls back to the generic path (analyze returns None) when: a state has
@@ -40,7 +39,6 @@ locality-free random test graphs, which keeps the generic path covered).
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -80,16 +78,13 @@ def _split3_rows(M):
 def _matmul_split3(M3, v):
     """Exact-class [F,F] @ [F,n] as ONE default-precision bf16 matmul.
 
-    Why: XLA's Precision.HIGH (bf16x3) lowering re-reads the fp32 matrix
-    per pass — at F=3526 that is ~150 MB of HBM traffic per frame for a
-    50 MB matrix, and the den scan pays it T times in each direction
-    (docs/PERFORMANCE.md "the structured den's next lever").  Stacking the
-    3-term row split of M ([3F, F] bf16, 75 MB) against the 3-term column
-    split of v ([F, 3n]) computes all nine cross products in a single MXU
-    pass that reads M3 exactly once; their fp32-accumulated sum equals the
-    exact product (the decompositions are exact), i.e. slightly MORE
-    accurate than HIGH, at half the matrix bytes.  FLOPs are 9x a plain
-    bf16 matmul but this op is memory-bound by >30x, so they are free.
+    Why: a multi-pass bf16 lowering of an fp32 dot may re-read the fp32
+    matrix once per pass, and the den scan pays that T times in each
+    direction.  Stacking the 3-term row split of M ([3F, F] bf16) against
+    the 3-term column split of v ([F, 3n]) computes all nine cross
+    products in a single bf16 matmul that reads M3 exactly once; their
+    fp32-accumulated sum equals the exact product (the decompositions are
+    exact), at half the matrix bytes and 9x the FLOPs of one bf16 pass.
     """
     import jax
     import jax.numpy as jnp
@@ -133,43 +128,6 @@ class ChainLayout:
     @property
     def num_slots(self) -> int:
         return self.L * self.F
-
-
-def pad_chains(lay: "ChainLayout", multiple: int = 128) -> "ChainLayout":
-    """Pad the chain axis F to a multiple with inert fake chains (zero
-    coefs/init/mask, real=False, zero M rows+cols).  All kernels remain
-    semantically identical (the fake slots carry exact zeros end to end);
-    required by the fused Pallas scans, harmless (~2-3% waste) for the
-    XLA path.  Only valid for single-group layouts (every chain the same
-    length), which is what the fused path supports."""
-    assert len(lay.groups) == 1
-    F, L = lay.F, lay.L
-    Fp = -(-F // multiple) * multiple
-    if Fp == F:
-        return lay
-    pad = Fp - F
-
-    def padF(a, axis):
-        widths = [(0, 0)] * a.ndim
-        widths[axis] = (0, pad)
-        return np.pad(a, widths)
-
-    return ChainLayout(
-        F=Fp, L=L, num_states=lay.num_states, num_pdfs=lay.num_pdfs,
-        pos_of_state=lay.pos_of_state, chain_of_state=lay.chain_of_state,
-        state_of_slot=np.pad(lay.state_of_slot, ((0, 0), (0, pad)),
-                             constant_values=-1),
-        self_pdf=padF(lay.self_pdf, 1),
-        self_coef=padF(lay.self_coef, 1),
-        fwd_pdf=padF(lay.fwd_pdf, 1),
-        fwd_coef=padF(lay.fwd_coef, 1),
-        M=np.pad(lay.M, ((0, pad), (0, pad))),
-        res_pdf=padF(lay.res_pdf, 0),
-        res_mask=padF(lay.res_mask, 0),
-        groups=[(L, 0, Fp)],
-        init=padF(lay.init, 1),
-        real=padF(lay.real, 1),
-    )
 
 
 def analyze_chain_structure(graph, max_len: int = 8,
@@ -353,63 +311,33 @@ class StructuredKernels:
     Semantics identical to the generic blocked path (all six Kaldi
     behaviors, same per-frame rescale + leaky bookkeeping — see
     denominator.py); only the *indexing structure* differs: elementwise
-    self-loops, shifted chain arcs, one dense [F, F] MXU matmul for the
+    self-loops, shifted chain arcs, one dense [F, F] matmul for the
     residual class, and a per-slot (~2S instead of per-arc ~A) blocked
     one-hot pdf reduction for the posteriors.
     """
 
     def __init__(self, layout: ChainLayout, leaky: float, mode: str,
-                 hoist_bytes: int = 1 << 30, matmul_impl: str = "auto",
-                 scan_impl: str = "auto"):
+                 hoist_bytes: int = 1 << 30, matmul_impl: str = "dot"):
+        import jax
         import jax.numpy as jnp
-        # fused Pallas scans (ops/pallas_den_scan.py) need the chain axis
-        # padded to the row-tile width; the XLA path is unaffected by the
-        # inert fake chains, so pad once here when the layout qualifies
-        if scan_impl == "auto":
-            scan_impl = os.environ.get("KALDI_TPU_DEN_SCAN", "auto")
-        assert scan_impl in ("auto", "fused", "xla")
-        self.scan_impl = scan_impl
-        self._fused_ready = False
-        if scan_impl == "fused" and len(layout.groups) == 1 \
-                and layout.L >= 2:
-            layout = pad_chains(layout)
-            self._fused_ready = True
+        from kaldi_fp16_tpu.chain.precision import EXACT_PRECISION
         self.lay = layout
         self.leaky = leaky
         self.mode = mode
         self.hoist_bytes = hoist_bytes
         L, F = layout.L, layout.F
-        self._precision = None  # set below
-
-        import jax
-        # HIGH = bfloat16x3 passes — the generic exact path's accuracy
-        # class (~3e-6 rel); DEFAULT = single-pass bf16 for 'fast'
-        self._precision = (jax.lax.Precision.HIGH if mode == "exact"
+        self._precision = (EXACT_PRECISION if mode == "exact"
                            else jax.lax.Precision.DEFAULT)
-        # exact-mode [F, F] matmul lowering (measured on TPU v5e at
-        # F=3526, N=128 — docs/PERFORMANCE.md round 4):
-        #   'high'   XLA Precision.HIGH: 3 bf16 passes re-reading the fp32
-        #            matrix each time (~150 MB HBM per application).
+        # exact-mode [F, F] matmul lowering:
+        #   'dot'    one XLA dot at EXACT_PRECISION.
         #   'split3' ONE stacked [3F,F]@[F,3n] bf16 matmul (single M read,
-        #            all 9 cross products): measured SLOWER — 9x FLOPs
-        #            turn the op compute-bound (60.4 vs 38.4 ms den).
-        #   'pallas' single fp32 M read + in-register bf16 split + the 6
-        #            needed cross-product dots from VMEM
-        #            (ops/pallas_den_matmul.py); in-scan applications
-        #            only, the bulk posterior matmul keeps 'high' (its M
-        #            read amortizes over the chunk's Tc frames).
-        if matmul_impl == "auto":
-            matmul_impl = os.environ.get("KALDI_TPU_DEN_MATMUL", "high")
-        assert matmul_impl in ("split3", "high", "pallas")
+        #            all 9 cross products at 9x the FLOPs of a bf16 pass).
+        assert matmul_impl in ("dot", "split3")
         self.matmul_impl = matmul_impl if mode == "exact" else "fast"
         self._M3 = self._MT3 = None
-        self._Mpallas = None
         if self.matmul_impl == "split3":
             self._M3 = _split3_rows(layout.M)                # [3F, F] bf16
             self._MT3 = _split3_rows(layout.M.T)             # [3F, F] bf16
-        elif self.matmul_impl == "pallas":
-            from kaldi_fp16_tpu.ops.pallas_den_matmul import PallasDenMatmul
-            self._Mpallas = PallasDenMatmul(layout.M, terms=6)
         self.self_pdf = jnp.asarray(layout.self_pdf.reshape(-1))    # [L*F]
         self.self_coef = jnp.asarray(layout.self_coef)              # [L, F]
         self.has_fwd = L > 1 and float(np.abs(layout.fwd_coef).sum()) > 0
@@ -454,20 +382,11 @@ class StructuredKernels:
             onehot[b, np.arange(n), sk[lo:hi] - b * SB] = 1.0
         self._post_perm = jnp.asarray(perm.astype(np.int32))
         self._post_valid = jnp.asarray(valid.astype(np.float32))
-        oh_dtype = np.float32 if mode == "exact" else None
         self._post_onehot = jnp.asarray(
             onehot.reshape(NB, J, AC, SB),
             dtype=jnp.float32 if mode == "exact" else jnp.bfloat16)
         self._post_NB, self._post_J, self._post_Ap = NB, J, Ap
         self._Pp = NB * SB
-        del oh_dtype
-
-        if self._fused_ready:
-            from kaldi_fp16_tpu.ops.pallas_den_scan import split3_matrix
-            self._M_split = split3_matrix(layout.M)
-            self._MT_split = split3_matrix(layout.M.T.copy())
-            self._real_f32 = jnp.asarray(layout.real.astype(np.float32))
-            self._init_sum = float(layout.init.sum())
 
     # ---- static slice helpers (chains grouped by length) -------------------
 
@@ -497,14 +416,6 @@ class StructuredKernels:
         """M @ v (or M.T if transpose) via the configured exact lowering."""
         if self._M3 is not None:
             return _matmul_split3(self._MT3 if transpose else self._M3, v)
-        n = int(np.prod(v.shape[1:]))
-        if self._Mpallas is not None and n <= 128:
-            # in-scan case (n == batch <= 128): the single-read kernel.
-            # Wider vectors fall through: the bulk-posterior call
-            # amortizes its M read over Tc frames already, and the
-            # kernel's VMEM scratch (3 bf16 v-splits + the fp32 v) only
-            # fits comfortably at n <= 128.
-            return self._Mpallas.apply(v, transpose)
         return self._matmul(self.M.T if transpose else self.M, v)
 
     # ---- emissions ---------------------------------------------------------
@@ -561,9 +472,6 @@ class StructuredKernels:
 
         # hoist budget: 2 passes of (2L+1)*F*N fp32 per frame
         hoist = T * (2 * L + 1) * F * N * 4 * 2 <= self.hoist_bytes
-
-        if self._use_fused(N, hoist):
-            return self._forward_backward_fused(x_tpn, N, T, compute_grad)
 
         per_frame, hoisted = self._emissions(x_tpn, hoist)
 
@@ -649,53 +557,6 @@ class StructuredKernels:
                                     (frame_inputs(), asum_hist),
                                     reverse=True)
 
-        posteriors = self._bulk_posteriors(adash_hist, asum_hist,
-                                           beta_hist, x_tpn, N, T, P)
-        return log_prob, posteriors
-
-    # ---- fused Pallas scans (ops/pallas_den_scan.py) -----------------------
-
-    def _use_fused(self, N: int, hoist: bool) -> bool:
-        if not (self._fused_ready and hoist and self.has_fwd
-                and N % 128 == 0 and self.lay.F % 128 == 0):
-            return False
-        # opt-in ONLY.  Measured on the TPU at production scale
-        # (2026-08-19, docs/PERFORMANCE.md round 4): fused fwd 10.64 ms
-        # vs XLA 10.75 (a wash — XLA's scan lowering is already near the
-        # floor), fused fwd+bwd 33.3 vs 26.8 (the beta kernel LOSES).
-        # Kept as the measured, parity-tested base for future re-audits;
-        # 'auto' resolves to the XLA scans.  Note for real multi-chip
-        # meshes: the data-parallel layer partitions with GSPMD
-        # jit-with-shardings, which cannot partition a pallas_call traced
-        # at global batch shapes — only shard_map-style setups where each
-        # shard sees a lane-multiple batch should set
-        # KALDI_TPU_DEN_SCAN=fused.
-        return self.scan_impl == "fused"
-
-    def _forward_backward_fused(self, x_tpn, N, T, compute_grad):
-        import jax.numpy as jnp
-        from kaldi_fp16_tpu.ops.pallas_den_scan import (
-            fused_backward, fused_forward,
-        )
-        lay = self.lay
-        L, F, P = lay.L, lay.F, lay.num_pdfs
-        leaky = float(self.leaky)
-        terms = 6 if self.mode == "exact" else 1
-        _, hoisted = self._emissions(x_tpn, True)
-        xs_self, xs_fwd, xs_res = hoisted
-        adash_hist, stats, a_fin = fused_forward(
-            self._MT_split, xs_self, xs_fwd, xs_res, self.init,
-            L=L, T=T, leaky=leaky, terms=terms)
-        asum_hist = stats[:, 0]                            # [T, N]
-        logcs = stats[:, 1]
-        total_prob = a_fin[0] * (1.0 + leaky * self._init_sum)
-        log_prob = jnp.log(total_prob) + logcs.sum(axis=0)
-        if not compute_grad:
-            return log_prob, None
-        total8 = jnp.zeros((8, N), jnp.float32).at[0].set(total_prob)
-        beta_hist = fused_backward(
-            self._M_split, xs_self, xs_fwd, xs_res, stats, self.init,
-            self._real_f32, total8, L=L, T=T, leaky=leaky, terms=terms)
         posteriors = self._bulk_posteriors(adash_hist, asum_hist,
                                            beta_hist, x_tpn, N, T, P)
         return log_prob, posteriors

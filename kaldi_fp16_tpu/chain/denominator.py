@@ -1,6 +1,6 @@
 """Probability-domain leaky-HMM denominator forward-backward (fused scans).
 
-TPU redesign of the reference chain_den.cu (ref: cpp/cuda/chain_den.cu:496-699,
+Redesign of the reference chain_den.cu (ref: cpp/cuda/chain_den.cu:496-699,
 itself a faithful port of Kaldi chain-denominator.cc).  All six Kaldi
 behaviors are preserved:
 
@@ -11,38 +11,38 @@ behaviors are preserved:
   5. all states final: beta'[T] = 1/total_prob uniformly
   6. transition prob = exp(-tropical_weight) (baked into graph.prob)
 
-Performance design (measured on TPU v5e, S=7052/A=113380/P=3080).  The
-recursion is a gather/scatter problem: alpha_next[dst] += alpha[src]*tp*x.
-XLA scatter-adds (segment_sum) run ~5x slower per step than gathers and
-dominated the first implementation; per-arc row gathers are index-rate
-bound (~0.21 ms per 113K rows) so every removed gather counts.  Design:
+Design (production den scale: S=7052/A=113380/P=3080).  The recursion is
+a gather/scatter problem: alpha_next[dst] += alpha[src]*tp*x.  Scatter-adds
+(segment_sum) are slower per step than gathers and need atomics on some
+backends; per-arc row gathers are index-rate bound, so every removed
+gather counts.  Design:
 
-  * State-major [S, N] layout (states in sublanes, batch in lanes) so all
+  * State-major [S, N] layout (states major, batch minor) so all
     per-arc reads are ROW gathers.
   * The graph is pre-padded ONCE on the host, in THREE arc orders (grouped
     by dst / src / pdf into 128-wide key blocks of 128-arc chunks, ~1.07x
     arc inflation).  Each scatter becomes a batched matmul against static
-    one-hot block matrices on the MXU:
+    one-hot block matrices:
         out[block] = sum_j onehot[block,j]^T @ arc_vals[block,j]
-    (~0.1-0.26 ms/step vs 1.2 ms/step for XLA segment_sum).  Padding
-    slots have all-zero one-hot rows, so no masks are needed anywhere.
+    which is deterministic (no atomics).  Padding slots have all-zero
+    one-hot rows, so no masks are needed anywhere.
     The forward runs dst-native, the beta recursion src-native — each
     scan reduces into its own order with zero permutation gathers.
   * Posteriors move OUT of the sequential scan into one bulk pass over
     all frames (chunked to bound memory): with [state, time*batch]
     operand layout each gathered row is T*N wide, so the three per-arc
     reads run near HBM bandwidth instead of at index rate, and the
-    per-pdf reduction is one big MXU contraction.
+    per-pdf reduction is one big matmul contraction.
   * Per-arc emission scores x[pdf[a]]*tp[a] are hoisted for all T frames
     before the scans when they fit (`hoist_bytes`); otherwise gathered
     per frame from a [T, P, N] table.
   * Two modes, mirroring the reference's deterministic/atomic kernel split
     (ref: chain_det.cu):
-      'exact': f32 one-hots, 3-pass (bfloat16x3) matmuls — ~3e-6 relative
-               error vs fp64; the parity path.
-      'fast':  bf16 one-hots, single-pass MXU (arc values rounded to bf16
-               inside the matmul) — ~1e-3 relative drift, measured by
-               tools/chainverify.py phase 4.
+      'exact': f32 one-hots, matmuls at chain.precision.EXACT_PRECISION
+               (fp32 class) — the parity path.
+      'fast':  bf16 one-hots, single-pass bf16 matmuls (arc values rounded
+               to bf16 inside the matmul) — ~1e-3 relative drift,
+               measured by tools/chainverify.py phase 4.
   * Batched over N sequences (the reference supports only
     num_sequences == 1, denominator.go:226-228); feed wide batches.
 """
@@ -57,9 +57,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from kaldi_fp16_tpu.chain.graph import DenominatorGraph
+from kaldi_fp16_tpu.chain.precision import EXACT_PRECISION
 
-SB = 128   # state/pdf block width (MXU lane dimension)
-AC = 128   # arcs per chunk (MXU contraction tile)
+SB = 128   # state/pdf block width (matmul output tile)
+AC = 128   # arcs per chunk (matmul contraction tile)
 
 
 class _BlockedOrder:
@@ -103,15 +104,6 @@ class _BlockedOrder:
         self.chunks = J
         self.padded = Ap
         self.onehot = onehot.reshape(NB, J, AC, SB)
-        # local key per slot for the Pallas on-the-fly one-hot reduce;
-        # padding slots get SB (matches no iota row)
-        local = np.full(Ap, SB, np.int32)
-        for b in range(NB):
-            lo, hi = int(bounds[b]), int(bounds[b + 1])
-            n = hi - lo
-            base = b * J * AC
-            local[base:base + n] = sk[lo:hi] - b * SB
-        self.local = jnp.asarray(local.reshape(NB, J * AC))
         self.src = jnp.asarray(graph.src[perm].astype(np.int32))
         self.dst = jnp.asarray(graph.dst[perm].astype(np.int32))
         self.pdf = jnp.asarray(graph.pdf[perm].astype(np.int32))
@@ -125,10 +117,8 @@ class DenominatorComputation:
 
     def __init__(self, graph: DenominatorGraph, leaky: float = 1e-5,
                  mode: str = "exact", hoist_bytes: int = 1 << 30,
-                 posterior_reduce: str = "einsum", layout: str = "auto",
-                 matmul_impl: str = "auto", scan_impl: str = "auto"):
+                 layout: str = "auto", matmul_impl: str = "dot"):
         assert mode in ("exact", "fast")
-        assert posterior_reduce in ("einsum", "pallas")
         assert layout in ("auto", "structured", "blocked")
         # the blocked orders / structured layout below are derived from
         # the graph ONCE; snapshot it into private frozen copies so a
@@ -147,7 +137,6 @@ class DenominatorComputation:
         self.leaky = leaky
         self.mode = mode
         self.hoist_bytes = hoist_bytes
-        self.posterior_reduce = posterior_reduce
         S, P = graph.num_states, graph.num_pdfs
 
         # Structure-exploiting layout (chains + dense phone-LM matmul,
@@ -162,8 +151,7 @@ class DenominatorComputation:
             lay = analyze_chain_structure(graph)
             if lay is not None:
                 self._structured = StructuredKernels(
-                    lay, leaky, mode, hoist_bytes, matmul_impl=matmul_impl,
-                    scan_impl=scan_impl)
+                    lay, leaky, mode, hoist_bytes, matmul_impl=matmul_impl)
             elif layout == "structured":
                 raise ValueError(
                     "layout='structured' requested but the graph does not "
@@ -174,7 +162,7 @@ class DenominatorComputation:
             return  # blocked-order machinery not needed
 
         oh_dtype = jnp.float32 if mode == "exact" else jnp.bfloat16
-        self._precision = (jax.lax.Precision.HIGH if mode == "exact"
+        self._precision = (EXACT_PRECISION if mode == "exact"
                            else jax.lax.Precision.DEFAULT)
 
         # secondary within-block sort = the gather index each order uses
@@ -202,23 +190,14 @@ class DenominatorComputation:
 
     # -- blocked one-hot reduction (the scatter replacement) -----------------
 
-    def _reduce(self, vals: jnp.ndarray, onehot: jnp.ndarray,
-                local: Optional[jnp.ndarray] = None) -> jnp.ndarray:
-        """[Ap, ...] arc values -> [NB*SB, ...] per-key block sums (MXU).
+    def _reduce(self, vals: jnp.ndarray, onehot: jnp.ndarray) -> jnp.ndarray:
+        """[Ap, ...] arc values -> [NB*SB, ...] per-key block sums.
 
-        Lowered as einsums against the stored one-hot blocks.  A Pallas
-        kernel with on-the-fly one-hots (ops/pallas_reduce.py) was measured
-        against it: standalone it wins at N>=64 (0.16 vs 0.22 ms/step) but
-        composed inside these scans it LOSES at every N on the current
-        toolchain (in-scan pallas_call dispatch + K-tiling overheads), so
-        the einsum stays the production path; `local` is accepted so the
-        two lowerings stay drop-in interchangeable for future re-audits.
-
-        A manual 2-pass value-split (bf16 hi+lo against bf16 one-hots,
-        DEFAULT precision) was also measured: no faster (116 vs 111 ms
-        full fwd-bwd at N=128) and its ~2^-17/step split error compounds
-        through the 49-step recursion to ~7e-4 posterior drift — outside
-        the exact-mode accuracy class.  HIGH (bf16x3) stays.
+        Lowered as einsums against the stored one-hot blocks.  A manual
+        2-pass value split (bf16 hi+lo against bf16 one-hots) is not an
+        option for exact mode: its ~2^-17/step split error compounds
+        through the 49-step recursion to ~7e-4 posterior drift, outside
+        the exact-mode accuracy class.
         """
         nb, j = onehot.shape[0], onehot.shape[1]
         rest = vals.shape[1:]
@@ -270,7 +249,7 @@ class DenominatorComputation:
             adash_prev, asum_prev = carry
             xtp_t = arc_scores(xs_t, dsto)
             av = jnp.take(adash_prev, dsto.src, axis=0) * xtp_t   # [Ap, N]
-            nxt = self._reduce(av, self._oh_dst, dsto.local)
+            nxt = self._reduce(av, self._oh_dst)
             safe = asum_prev > 0
             nxt = jnp.where(safe[None, :], nxt / asum_prev[None, :], nxt)
             logc = jnp.where(safe, jnp.log(asum_prev), 0.0)
@@ -307,7 +286,7 @@ class DenominatorComputation:
             xtp_t = arc_scores(xs_t, srco)
             inv = jnp.where(asum_t > 0, 1.0 / asum_t, 0.0)        # [N]
             bv = jnp.take(beta_next, srco.dst, axis=0) * xtp_t    # [Ap, N]
-            bd = self._reduce(bv, self._oh_src, srco.local) * inv[None, :]
+            bd = self._reduce(bv, self._oh_src) * inv[None, :]
             # emit the carry INPUT: frame t's posteriors use beta at t+1
             return leakify(bd), beta_next
 
@@ -316,7 +295,7 @@ class DenominatorComputation:
 
         # ---- bulk posteriors (pdf-native order, chunked over T) -------------
         # gamma[t][pdf] = alpha'[t][src] * tp * x[t][pdf] * beta[t+1][dst]
-        #                 / alpha_sum[t], reduced per pdf with one MXU
+        #                 / alpha_sum[t], reduced per pdf with one matmul
         # contraction per chunk.  [state, time*batch] layout makes each
         # per-arc gather row T_c*N wide (bandwidth-bound, not index-bound).
         inv_hist = jnp.where(asum_hist > 0, 1.0 / asum_hist, 0.0)  # [T, N]
@@ -351,19 +330,9 @@ class DenominatorComputation:
             av = jnp.take(ad_st, pdfo.src, axis=0)            # [Ap, Tc, N]
             bt = jnp.take(be_st, pdfo.dst, axis=0)
             gv = av * bt * pdfo.prob[:, None, None]
-            if self.posterior_reduce == "pallas":
-                from kaldi_fp16_tpu.ops.pallas_reduce import (
-                    blocked_segment_reduce,
-                )
-                red = blocked_segment_reduce(
-                    gv.reshape(pdfo.num_blocks, pdfo.chunks * AC, Tc * N),
-                    pdfo.local, sb=SB, exact=self.mode == "exact")
-                red = red.reshape(self._Pp, Tc, N)
-            else:
-                red = self._reduce(gv.reshape(pdfo.padded, Tc * N),
-                                   self._oh_pdf, pdfo.local)
-                red = red.reshape(self._Pp, Tc, N)
-            red = red[:P]                                      # [P, Tc, N]
+            red = self._reduce(gv.reshape(pdfo.padded, Tc * N),
+                               self._oh_pdf)
+            red = red.reshape(self._Pp, Tc, N)[:P]                                      # [P, Tc, N]
             return red * x_pt * iv[None, :, :]
 
         posts = jax.lax.map(chunk_posts, (ad_c, be_c, x_c, inv_c))

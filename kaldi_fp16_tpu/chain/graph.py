@@ -7,7 +7,7 @@ from a 100-iteration float64 HMM power-method warmup.
 
 NumeratorGraphBatch: per-utterance supervision FSTs padded to a common
 (max_states, max_arcs) so a whole minibatch is one set of rectangular
-arrays — the TPU-native replacement for the reference's per-sequence
+arrays — the static-shape replacement for the reference's per-sequence
 CSR uploads (ref: chain_loss.go:44-127).  Padding arcs carry mask=0 and
 are routed to a dummy state/pdf so they contribute nothing.
 """

@@ -1,6 +1,6 @@
 """Log-domain numerator forward-backward as a single jitted lax.scan.
 
-TPU redesign of the reference's per-frame kernel-launch loop
+Redesign of the reference's per-frame kernel-launch loop
 (ref: cpp/cuda/chain.cu:368-473 — one launch per frame, atomicLogAdd):
 here the whole T-recursion is ONE fused scan compiled by XLA, and the
 per-frame arc reduction is exact and deterministic (XLA determinism
@@ -9,8 +9,8 @@ chain_det.cu).
 
 Hardware mapping: numerator FSTs are tiny (~200 states / ~256 arcs per
 utterance chunk, ref chain_det.cu:8-9), so state gather and scatter are
-expressed as ONE-HOT MATMULS — exact selection/summation that runs on the
-MXU instead of TPU-hostile scatter ops.  The log-sum-exp uses a per-frame
+expressed as ONE-HOT MATMULS — exact, deterministic selection/summation
+(no scatter atomics).  The log-sum-exp uses a per-frame
 global shift; states more than ~87 nats below the frame max underflow to
 log-zero, which is far below any path that matters (same effective range
 as the reference's fp32 atomicLogAdd).
@@ -28,10 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from kaldi_fp16_tpu.chain.graph import LOG_ZERO, NumeratorGraphBatch
-
-# one-hot matmuls: bfloat16x3 passes keep fp32 values to ~1e-7 relative
-# (one-hots are exact in bf16); 2x cheaper than HIGHEST's 6 passes
-_PREC = jax.lax.Precision.HIGH
+from kaldi_fp16_tpu.chain.precision import EXACT_PRECISION as _PREC
 
 
 @functools.partial(jax.jit, static_argnames=("num_states",))

@@ -1,6 +1,6 @@
 """Pure-numpy float64 reference implementations of the chain recursions.
 
-These are the correctness anchor for the JAX/Pallas kernels: they follow the
+These are the correctness anchor for the JAX kernels: they follow the
 reference CUDA semantics step for step (ref: cpp/cuda/chain.cu for the
 log-domain numerator, cpp/cuda/chain_den.cu for the probability-domain
 leaky-HMM denominator) but run in float64 with deterministic summation
@@ -192,6 +192,86 @@ def denominator_forward_backward_ref(graph: DenominatorGraph,
         beta = beta_dash + leaky * np.dot(init, beta_dash)
 
     return log_prob, grad
+
+
+def _grouped_arcs(keys: np.ndarray, num: int) -> np.ndarray:
+    """[num, D] arc indices grouped by key, padded with the index A (one
+    past the last arc), D = the largest group."""
+    keys = np.asarray(keys, np.int64)
+    counts = np.bincount(keys, minlength=num)
+    order = np.argsort(keys, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    table = np.full((num, max(1, int(counts.max(initial=0)))), len(keys),
+                    np.int64)
+    table[keys[order], np.arange(len(keys)) - starts[keys[order]]] = order
+    return table
+
+
+def denominator_forward_backward_plain(graph: DenominatorGraph,
+                                       nnet_output, leaky: float = 1e-5):
+    """`denominator_forward_backward_ref` in plain float32 jax.numpy,
+    batched: nnet_output [N, T, P] -> (log_prob [N], posteriors [N, T, P]).
+
+    Per frame and direction, every arc's value is computed and summed into
+    its state (or pdf) through a padded [keys, max-group] table of arc
+    indices: plain gathers and sums in a fixed order, with none of the
+    device kernels' layouts or one-hot reductions, and no scatter.  The
+    independent full-size reference for them; its dots ask for HIGHEST.
+    """
+    import jax
+    import jax.numpy as jnp
+
+    N, T, P = nnet_output.shape
+    S = graph.num_states
+    src = jnp.asarray(graph.src, jnp.int32)
+    dst = jnp.asarray(graph.dst, jnp.int32)
+    pdf = jnp.asarray(graph.pdf, jnp.int32)
+    prob = jnp.asarray(graph.prob, jnp.float32)[:, None]
+    by_dst = jnp.asarray(_grouped_arcs(graph.dst, S), jnp.int32)
+    by_src = jnp.asarray(_grouped_arcs(graph.src, S), jnp.int32)
+    by_pdf = jnp.asarray(_grouped_arcs(graph.pdf, P), jnp.int32)
+
+    def group_sum(vals, table):                      # [A, N] -> [K, N]
+        vals = jnp.concatenate([vals, jnp.zeros_like(vals[:1])], axis=0)
+        return vals[table].sum(axis=1)
+    init = jnp.asarray(graph.initial, jnp.float32)
+    hi = jax.lax.Precision.HIGHEST
+    x = jnp.exp(jnp.clip(jnp.asarray(nnet_output, jnp.float32), -30.0, 30.0))
+    x_tpn = jnp.transpose(x, (1, 2, 0))                        # [T, P, N]
+
+    def leakify(v, total):
+        return v + leaky * total[None, :] * init[:, None]
+
+    asum0 = jnp.full((N,), init.sum())
+    adash0 = leakify(jnp.broadcast_to(init[:, None], (S, N)), asum0)
+
+    def fwd(carry, x_t):
+        adash, asum = carry
+        nxt = group_sum(adash[src] * prob * x_t[pdf], by_dst)
+        ok = asum > 0
+        nxt = jnp.where(ok, nxt / asum, nxt)
+        logc = jnp.where(ok, jnp.log(asum), 0.0)
+        asum_next = nxt.sum(axis=0)
+        return (leakify(nxt, asum_next), asum_next), (adash, asum, logc)
+
+    (adash_T, _), (adash_hist, asum_hist, logcs) = jax.lax.scan(
+        fwd, (adash0, asum0), x_tpn)
+    total = adash_T.sum(axis=0)
+    log_prob = jnp.log(total) + logcs.sum(axis=0)
+
+    def bwd(beta, inp):
+        x_t, adash_t, asum_t = inp
+        contrib = beta[dst] * prob * x_t[pdf]                   # [A, N]
+        inv = jnp.where(asum_t > 0, 1.0 / asum_t, 1.0)
+        bd = group_sum(contrib, by_src) * inv
+        post_t = group_sum(adash_t[src] * contrib * inv, by_pdf)  # [P, N]
+        return bd + leaky * jnp.dot(init, bd, precision=hi), post_t
+
+    beta_dash_T = jnp.broadcast_to(1.0 / total[None, :], (S, N))
+    beta_T = beta_dash_T + leaky * jnp.dot(init, beta_dash_T, precision=hi)
+    _, posts = jax.lax.scan(bwd, beta_T, (x_tpn, adash_hist, asum_hist),
+                            reverse=True)
+    return log_prob, jnp.transpose(posts, (2, 0, 1))
 
 
 def denominator_brute_force(graph: DenominatorGraph, nnet_output: np.ndarray,

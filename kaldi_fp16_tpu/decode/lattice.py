@@ -51,8 +51,8 @@ class LatticeArc:
 class ArcArrays:
     """Sequence of LatticeArc over parallel numpy arrays.  Same lazy-view
     pattern as io/native.py LazyIndexList: building millions of
-    LatticeArc objects was the bottleneck of device-lattice assembly
-    (docs/PERFORMANCE.md decode table), and the hot lattice algorithms
+    LatticeArc objects was the bottleneck of device-lattice assembly,
+    and the hot lattice algorithms
     (forward/backward costs, prune) only need the arrays."""
 
     __slots__ = ("src", "dst", "ilabel", "olabel", "graph_cost",

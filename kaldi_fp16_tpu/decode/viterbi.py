@@ -10,8 +10,8 @@ semantics, reimplemented from scratch):
   termination: add final costs; backtrace the best token's arc chain,
   collecting output labels (words).
 
-This CPU implementation is the correctness oracle; a batched TPU version
-can layer on top (posteriors are computed on-device; graphs live on host).
+This CPU implementation is the correctness oracle for the batched device
+decoders in tpu_viterbi.py.
 """
 
 from __future__ import annotations

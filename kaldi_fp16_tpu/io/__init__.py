@@ -1,6 +1,6 @@
 """Kaldi-format data pipeline: cegs/ark parsing, FSTs, sparse formats, batching.
 
-TPU-first redesign of the reference's pure-Go data layer
+Redesign of the reference's pure-Go data layer
 (ref: internal/parser, internal/sparse, internal/batch, internal/loader).
 """
 

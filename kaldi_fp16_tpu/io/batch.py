@@ -1,6 +1,6 @@
 """Batch assembly: cegs examples -> static-shape device-ready arrays.
 
-TPU-first redesign of the reference batching (ref: internal/batch/batch.go +
+Redesign of the reference batching (ref: internal/batch/batch.go +
 internal/loader/dataloader.go): instead of a ragged
 [total_frames x 40] concatenation with per-sequence frame offsets, examples
 are BUCKETED by (input_frames, supervision_frames) so each bucket yields

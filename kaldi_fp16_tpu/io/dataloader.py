@@ -212,7 +212,7 @@ class DataLoader:
 class PrefetchLoader:
     """Background-thread prefetch around a DataLoader (or any batch
     iterable): host-side parse/assembly overlaps device compute, the
-    TPU-side realization of the reference's planned goroutine pipeline +
+    realization of the reference's planned goroutine pipeline +
     pinned-buffer ring (ref: docs/kaldi_fp16_complete_report.md §3.5-3.6;
     only the pinned-buffer half landed there, bridge.go:229-366).
 
@@ -392,8 +392,9 @@ class ProcessLoader:
     than assembly).  Deterministic round-robin merge given a fixed file
     list, same contract as MultiPrefetchLoader(deterministic=True).
 
-    Workers never touch jax — pure numpy — so 'spawn' start is safe
-    alongside an initialized TPU backend in the parent.
+    Workers never run a jax computation — pure numpy — so no worker
+    initialises a backend, and 'spawn' start is safe while the parent
+    holds the accelerator (chip_smoke.py checks this on the card).
     """
 
     def __init__(self, pattern_or_files, config: DataLoaderConfig,

@@ -125,7 +125,7 @@ def _np_copy(ptr, count, dtype):
     np.frombuffer over a from_address view is ~2x faster per call than
     np.ctypeslib.as_array (which rebuilds an array type every call) —
     at ~8 copies per example this was a measurable slice of the
-    128-example batch parse (see docs/PERFORMANCE.md r5)."""
+    128-example batch parse."""
     if count == 0:
         return np.empty(0, dtype=dtype)
     nbytes = count * np.dtype(dtype).itemsize

@@ -1,6 +1,6 @@
 """Sparse FST representations for the chain objective (CSR / COO), numpy-based.
 
-TPU-first redesign of the reference's internal/sparse/sparse.go: arcs are kept
+Redesign of the reference's internal/sparse/sparse.go: arcs are kept
 as flat SoA numpy arrays ready to be padded into static-shape device arrays.
 Weight negation tropical -> log-prob happens here, on BOTH the arc weights and
 the final weights, in both conversion paths (ref: sparse.go:84,91,132,137 —

@@ -1,6 +1,6 @@
 """Acoustic model layer: xconfig DSL -> layer specs -> JAX network.
 
-TPU-first redesign of the reference model stack
+Redesign of the reference model stack
 (ref: internal/nnet/{xconfig,layers,model,forward}.go).
 """
 

@@ -1,20 +1,20 @@
 """Functional JAX network: init + forward for xconfig models.
 
-TPU-first redesign of the reference forward engine
+Redesign of the reference forward engine
 (ref: internal/nnet/forward.go).  Key departures, all deliberate:
 
   * Everything is batched [B, T, D] and lives in one jit: no per-op host
     round-trips (the reference bounced conv im2col and attention to the CPU,
     forward.go:418-524, 795-909 — its known hot spots).
-  * Convolution is a patch-gather + single MXU matmul per layer (the
+  * Convolution is a patch-gather + single matmul per layer (the
     XLA-fusable equivalent of im2col where the gather is shifts, not
     scalar loops).  Feature-map layout is Kaldi's: column = height * nf + f.
   * BatchNorm follows Kaldi BatchNormComponent semantics: batch statistics
     during training (autodiff backprops through them — the reference used an
     inference-form approximation in its backward), accumulated running
     stats for test mode, target-rms scaling, no learnable gamma/beta.
-  * Mixed precision: params are stored fp32; compute_dtype (bf16 on TPU)
-    is applied at use; matmuls accumulate fp32 via preferred_element_type.
+  * Mixed precision: params are stored fp32; compute_dtype (bf16 for
+    training) is applied at use; matmuls accumulate fp32 via preferred_element_type.
 
 Parameters are a plain nested dict  params[layer_name][param_name] and
 BN statistics live in a separate `state` dict, so the whole network is a
@@ -159,18 +159,18 @@ def trainable_mask(model: Model, params: Params) -> Params:
 # ---------------------------------------------------------------------------
 
 def _matmul(x: jnp.ndarray, w: jnp.ndarray, dtype) -> jnp.ndarray:
-    """bf16-in, fp32-accumulate matmul on the MXU.
+    """bf16-in, fp32-accumulate matmul.
 
-    For fp32 compute we request HIGHEST precision: on TPU the default fp32
-    matmul truncates inputs to bf16 passes, which would silently degrade the
-    fp32 verification path."""
+    For fp32 compute we request HIGHEST precision: a backend's default fp32
+    matmul may round inputs to bf16 or TF32, which would silently degrade
+    the fp32 verification path."""
     precision = (jax.lax.Precision.HIGHEST if dtype == jnp.float32
                  else jax.lax.Precision.DEFAULT)
     return jnp.dot(x.astype(dtype), w.astype(dtype),
                    preferred_element_type=jnp.float32, precision=precision)
 
 
-# Experiment knob (docs/PERFORMANCE.md "MFU nudge"): when True, batchnorm
+# Experiment knob: when True, batchnorm
 # normalizes in the compute dtype (bf16) with fp32-ACCUMULATED reductions
 # instead of materializing an fp32 upcast of the activation tensor — the
 # saved residuals for the BN backward then stay bf16, halving that layer's
@@ -329,8 +329,8 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict, x: jnp.ndarray,
         dilation encodes evenly spaced offsets, stride the height
         subsample.  No patch materialization: the patch path writes+reads
         a [B, T, H_out, k*nf_in] concat (~0.9 GB bf16 per cnn layer at
-        B=128) in BOTH passes, and fwd+bwd sit at 94% of HBM bandwidth
-        (docs/PERFORMANCE.md roofline), so skipping it buys real time.
+        B=128) in BOTH passes, and fwd+bwd are bandwidth-bound, so
+        skipping it buys real time.
       * PATCH: shifts + concat + one matmul.  Kept for irregular offset
         grids and for NG-SGD, whose Fisher factors tap the materialized
         patch as the matmul input (ref conv design: forward.go:418-524
@@ -387,12 +387,13 @@ def _fwd_conv_relu_bn(spec: ConvReluBNSpec, p: dict, bn: dict, x: jnp.ndarray,
         kernel = p["w"].reshape(len(t_offs), len(h_offs), nf_in,
                                 nf_out).astype(dtype)
         # no preferred_element_type: its vjp mixes f32 cotangents with
-        # bf16 operands and conv requires uniform dtypes; XLA TPU convs
-        # accumulate in f32 internally regardless, so only the output
-        # rounding differs (bf16, same class as the rest of the net).
-        # HIGHEST for f32 compute: the TPU default would run bf16 passes
-        # and silently degrade the fp32 verification path (same guard as
-        # _matmul).
+        # bf16 operands and conv requires uniform dtypes; bf16 convs
+        # accumulate in f32 internally, so only the output rounding
+        # differs (bf16, same class as the rest of the net; chip_smoke's
+        # fwd phase checks it against the fp32 forward on the GPU).
+        # HIGHEST for f32 compute: a backend default may round to bf16 or
+        # TF32 and silently degrade the fp32 verification path (same
+        # guard as _matmul).
         out = jax.lax.conv_general_dilated(
             xs, kernel,
             window_strides=(1, sub),

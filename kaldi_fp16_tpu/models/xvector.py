@@ -2,7 +2,7 @@
 
 Covers the reference's GoTorch x-vector capability (ref:
 go/gotorch/cnn_tdnn.go:383-554 XVectorConfig/BuildCNNTDNN — a pure-Go CPU
-stack there; here it reuses the same TPU blocks as the acoustic model):
+stack there; here it reuses the same JAX blocks as the acoustic model):
 frame-level TDNN layers with spliced temporal contexts -> statistics
 pooling (mean+stddev over time, ref cnn_kernels.cu stats_pooling_fp16)
 -> segment-level affines.  The first segment affine's pre-activation is

@@ -4,7 +4,7 @@ Functional JAX equivalents of the reference's CNN kernel set
 (ref: cpp/cuda/cnn_kernels.cu:19-663 — conv1d fwd/bwd, maxpool1d with saved
 argmax, avgpool1d, x-vector stats pooling, layernorm, depthwise + pointwise
 conv, SE block; go/gotorch/cnn_tdnn.go Conv1D/StatsPooling/Dropout).
-Backward passes come from autodiff; the MXU path is lax.conv_general_dilated.
+Backward passes come from autodiff; convolutions are lax.conv_general_dilated.
 """
 
 from __future__ import annotations

@@ -12,9 +12,10 @@ Axes:
   model  — tensor parallelism for the wide output/prefinal matmuls
            (3080 pdf-ids shard cleanly)
 
-On a v5e slice the 'data' axis should ride ICI within a host and DCN across
-hosts (jax.distributed handles the process mesh); 'seq' and 'model' stay
-intra-host.
+The mesh follows the algorithm alone: the cards of a host reach each other
+all to all (NVLink), so the 'data' axis is a plain list of devices;
+across hosts jax.distributed handles the process mesh, and 'seq' and
+'model' stay intra-host.
 """
 
 from __future__ import annotations
@@ -54,10 +55,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            heartbeat_timeout_seconds: Optional[int] = None,
                            ) -> None:
     """Multi-host bring-up: jax.distributed.initialize with explicit args or
-    from the environment (JAX auto-detects GKE/SLURM/TPU-pod metadata when
-    called with no args).  Safe to call once per process before any jax op;
+    from the environment (JAX auto-detects cluster metadata such as SLURM
+    when called with no args).  Safe to call once per process before any jax op;
     after it, jax.devices() spans all hosts and `make_mesh` builds the
-    global mesh (dp over ICI intra-slice / DCN across hosts).
+    global mesh (dp within and across hosts).
 
     heartbeat_timeout_seconds: how quickly a dead peer process is
     detected and surfaced as an error to the survivors (default: jax's

@@ -2,8 +2,9 @@
 init 65536, growth 2.0 every 2000 good steps, backoff 0.5 on overflow;
 kernels.cu check_overflow_kernel).
 
-bf16 shares fp32's exponent range, so scaling is rarely needed on TPU; it is
-provided for fp16-compute parity and as a guard for pathological batches.
+bf16 shares fp32's exponent range, so scaling is rarely needed for bf16
+compute; it is provided for fp16-compute parity and as a guard for
+pathological batches.
 """
 
 from __future__ import annotations

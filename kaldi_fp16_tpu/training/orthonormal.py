@@ -9,7 +9,7 @@ TDNN-F training from random init is markedly less stable.
 
 The reference PARSES the xconfig option but never applies it (the
 `OrthonormalConstraint` field is written at layers.go:45,221 and read
-nowhere else), so this is a capability the TPU build adds on top of
+nowhere else), so this is a capability this build adds on top of
 parity.  Kaldi applies the update on a random ~1/4 of steps; here the
 trainer applies it deterministically every `orthonormal_interval` steps
 (XLA-friendly: one lax.cond on the step counter, no host randomness).

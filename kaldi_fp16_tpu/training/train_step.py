@@ -1,7 +1,7 @@
 """The pure, jittable training step (ref: internal/nnet/train_step.go).
 
 Pipeline per step, mirroring Kaldi NnetChainTrainer::TrainInternal:
-  features/ivectors -> Network.forward (bf16 MXU compute)
+  features/ivectors -> Network.forward (bf16 compute)
   -> subsample output frames (stride 3, left-context offset)
   -> chain objective (custom_vjp: analytic forward-backward derivative)
   [+ optional xent head: xent_regularize * sum(num_post * log_softmax)]

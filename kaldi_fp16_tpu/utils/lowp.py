@@ -3,8 +3,8 @@
 The reference ships a software IEEE-754 binary16 codec with conversion-loss
 statistics used to validate that the 2600h dataset survives fp16 ingestion
 with zero overflow/underflow (ref: internal/fp16/fp16.go:13-184; BASELINE
-row "FP16 conversion over 6.5M examples: 0 overflow / 0 underflow").  On
-TPU the training dtype is bfloat16, but both codecs are provided so the
+row "FP16 conversion over 6.5M examples: 0 overflow / 0 underflow").  The
+training dtype here is bfloat16, but both codecs are provided so the
 same audit can be run for either target format.
 """
 

@@ -81,7 +81,26 @@ def profile_fn(fn: Callable, *args, iters: int = 20, warmup: int = 2) -> dict:
             "min_ms": float(a.min() * 1000)}
 
 
-def mxu_utilization(flops: float, seconds: float,
-                    peak_tflops: float = 197.0) -> float:
-    """Fraction of peak MXU throughput (v5e bf16 peak ~197 TFLOPS)."""
-    return flops / seconds / (peak_tflops * 1e12)
+# Published dense peaks of each supported device, keyed by the
+# `device_kind` JAX reports.  Source: NVIDIA H100 Tensor Core GPU data
+# sheet, SXM5 column, dense rates without sparsity, at the 700 W power
+# limit (a card set to a lower limit cannot hold these clocks).
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_tflops": 989.0,      # tensor cores, bf16/fp16
+        "tf32_tflops": 495.0,      # tensor cores, TF32
+        "fp32_tflops": 67.0,       # outside the tensor cores
+        "hbm_gbs": 3350.0,         # 80 GB HBM3
+    },
+}
+
+
+def device_peaks(device_kind: str) -> dict:
+    """Published peaks for `device_kind`; an unknown device is an error,
+    never a default."""
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device_kind {device_kind!r}; add a "
+            f"row to DEVICE_PEAKS with its source") from None

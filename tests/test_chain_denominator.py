@@ -251,10 +251,10 @@ class TestStructuredLayout:
                                    rtol=1e-6)
 
     def test_split3_matmul_matches_high(self):
-        """Round-4 exact-mode lowering: the single-read stacked 3-term
-        bf16 split of the dense residual matmul (_matmul_split3) must
-        stay in the exact accuracy class — vs the Precision.HIGH lowering
-        AND vs the fp64 oracle.  (The 2-term split was measured OUTSIDE
+        """Exact-mode lowering: the single-read stacked 3-term bf16
+        split of the dense residual matmul (_matmul_split3) must stay in
+        the exact accuracy class — vs the plain EXACT_PRECISION dot AND
+        vs the fp64 oracle.  (The 2-term split was measured OUTSIDE
         the class in round 2: ~2^-17/step compounding to ~7e-4 drift;
         three terms decompose fp32 exactly, so there is nothing to
         compound.)"""
@@ -263,9 +263,9 @@ class TestStructuredLayout:
             make_phone_lm_den_fst(48, 13, 2, 5, seed=11), 48)
         rng = np.random.default_rng(4)
         nnet = rng.normal(size=(3, 9, 48)).astype(np.float32)
-        dh = DenominatorComputation(g, leaky=1e-4, matmul_impl="high")
+        dh = DenominatorComputation(g, leaky=1e-4, matmul_impl="dot")
         ds = DenominatorComputation(g, leaky=1e-4, matmul_impl="split3")
-        assert dh._structured.matmul_impl == "high"
+        assert dh._structured.matmul_impl == "dot"
         assert ds._structured.matmul_impl == "split3"
         lh, ph = dh.forward_backward(jnp.asarray(nnet))
         ls, ps = ds.forward_backward(jnp.asarray(nnet))

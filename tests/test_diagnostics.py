@@ -1,7 +1,7 @@
 """Held-out diagnostics (compute_prob analog) + final-model averaging.
 
-Kaldi's training ops staples the reference relied on Kaldi itself for
-(VERDICT r4 item 8): per-iteration valid objf via
+Kaldi's training ops staples the reference relied on Kaldi itself for:
+per-iteration valid objf via
 nnet3-chain-compute-prob (the BASELINE.md trained-model objf
 ~-0.17/frame comes from those logs) and final-model combination over
 the last N iterates.  Pinned here:

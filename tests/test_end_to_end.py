@@ -183,7 +183,7 @@ class TestCheckpoint:
         Trainer.restore (params/opt/scale + the RNG key recorded in
         DataPosition) must reproduce the killed run's next step EXACTLY
         — tools/soak.py asserts the same at the subprocess level (the
-        r3 TPU soak caught a fresh-PRNGKey resume diverging by up to
+        a soak run caught a fresh-PRNGKey resume diverging by up to
         0.18 objf/frame on replayed steps)."""
         trainer = make_trainer()
         batches = list(_loader(ark_dir))

@@ -151,8 +151,8 @@ def _setup_grid():
     """Grid-eligible flagship-shaped slice: a conv at the full->grid
     boundary (cut-conv candidate) + a stride-3 TDNN-F suffix, so the
     production grid path (dynamic supervision slice + strided cut-conv
-    window) is actually exercised — VERDICT r4 flagged that the sharded
-    parity tests rode a grid-INeligible model and could silently no-op."""
+    window) is actually exercised — sharded parity tests on a
+    grid-INeligible model could silently no-op."""
     rng = np.random.default_rng(33)
     model = build_model_from_string(GRID_XCONFIG)
     den_graph = DenominatorGraph.from_fst(
@@ -173,7 +173,7 @@ def _setup_grid():
 
 
 class TestGridSharded:
-    """Grid + cut-conv under meshes (VERDICT r4 item 2a): the frame-grid
+    """Grid + cut-conv under meshes: the frame-grid
     program — dynamic full->grid cut slice, strided cut-conv window, grid
     BN statistics — must reproduce single-device numbers when the batch
     AND the feature time axis are sharded."""

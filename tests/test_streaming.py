@@ -142,7 +142,7 @@ class TestStreamingDecoder:
 
 
 class TestWindowedStreamingDecoder:
-    """HCLG-scale streaming (windowed commits, VERDICT r4 item 3):
+    """HCLG-scale streaming (windowed commits):
     bounded backpointer window + traceback-delay commits, reusing the
     offline kernels (arc-parallel below 64K arcs, tree-ELL above)."""
 

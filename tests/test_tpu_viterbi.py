@@ -198,7 +198,7 @@ class TestDeviceLattice:
     def test_compact_transfer_matches_dense(self):
         """Device-side nonzero-byte compaction (transfer='compact') must
         produce byte-identical lattices to the dense mask transfer, for
-        both kernel layouts (VERDICT r4 item 4)."""
+        both kernel layouts."""
         from kaldi_fp16_tpu.decode.tpu_viterbi import DeviceLatticeDecoder
         for seed in (0, 3):
             g = DecodingGraph.from_fst(random_eps_free_graph(seed=seed))

@@ -5,34 +5,13 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from kaldi_fp16_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402,F401
+
 
 def force_cpu():
-    """Run a tool on CPU regardless of the ambient TPU platform pin."""
+    """Run a tool on the CPU backend (the tools' --cpu flag)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-
-
-def enable_compile_cache(path: str = None):
-    """Persistent XLA compilation cache shared across tool processes.
-
-    The flagship train step costs minutes to compile; every CLI
-    invocation is a fresh process, so without this each run repays the
-    full compile.  Serialized executables are keyed on HLO + compile
-    options, so correctness is unaffected.  Safe to call before any
-    backend is initialized (config only); failures (read-only home,
-    no jax) degrade to no cache rather than crashing numpy-only tools."""
-    if os.environ.get("KALDI_TPU_NO_COMPILE_CACHE"):
-        return
-    try:
-        import jax
-        if path is None:
-            path = os.path.join(os.path.expanduser("~"), ".cache",
-                                "kaldi_fp16_tpu_xla")
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    except Exception:  # noqa: BLE001 — cache is an optimization only
-        pass
 
 
 def read_metrics(path):

@@ -3,7 +3,7 @@
 reference's production scale (ref: cmd/chainbench; BASELINE.md: chain loss
 for a batch of 8 sequences = ~91 ms on the RTX 4090).
 
-Runs on whatever backend JAX selects (the real TPU under the driver).
+Runs on whatever backend JAX selects.
 
 Usage: python tools/chainbench.py [--batch 8] [--frames 50] [--pdfs 3080]
 """
@@ -37,11 +37,11 @@ def main():
                     choices=["random", "phone-lm"],
                     help="random = locality-free worst case; phone-lm = "
                          "realistic den.fst structure")
-    ap.add_argument("--matmul-impl", default="auto",
-                    choices=["auto", "split3", "high", "pallas"],
+    ap.add_argument("--matmul-impl", default="dot",
+                    choices=["dot", "split3"],
                     help="structured-den exact-mode dense matmul lowering "
                          "(split3 = single-read stacked bf16 3-term split; "
-                         "high = XLA Precision.HIGH multi-read)")
+                         "dot = one XLA dot at the exact-mode precision)")
     ap.add_argument("--layout", default="auto",
                     choices=["auto", "structured", "blocked"],
                     help="denominator kernel layout: auto routes phone-lm "

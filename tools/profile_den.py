@@ -2,11 +2,11 @@
 """Attribute structured-denominator time: scan matmuls vs posteriors.
 
 Three measurements at production scale (7052 states / 3080 pdfs phone-LM,
-F=3526 chains, L=2), per exact-mode matmul lowering (high | split3):
+F=3526 chains, L=2), per exact-mode matmul lowering (dot | split3):
 
   1. matmul-in-scan microbench: T*2 sequential [F,F]@[F,N] applications —
      the isolated cost of the M traffic the den scans pay (fwd T steps +
-     beta T steps).  This is the round-4 lever's direct measurement.
+     beta T steps).
   2. den forward() only (fwd scan, no posterior machinery).
   3. den forward_backward() (adds beta scan + bulk posterior pass).
 
@@ -40,10 +40,9 @@ def main():
     ap.add_argument("--frames", type=int, default=49)
     ap.add_argument("--pdfs", type=int, default=3080)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--impls", default="high,fused",
-                    help="comma list: high | split3 | pallas (matmul "
-                         "lowerings, XLA scan) | fused (Pallas scan "
-                         "kernels)")
+    ap.add_argument("--impls", default="dot,split3",
+                    help="comma list of exact-mode matmul lowerings: "
+                         "dot | split3")
     args = ap.parse_args()
 
     import jax
@@ -63,13 +62,7 @@ def main():
     report = {"config": {"B": N, "T": T, "P": P,
                          "S": graph.num_states, "A": graph.num_transitions}}
     for impl in args.impls.split(","):
-        if impl == "fused":
-            den = DenominatorComputation(graph, leaky=1e-5,
-                                         scan_impl="fused")
-        else:
-            den = DenominatorComputation(graph, leaky=1e-5,
-                                         matmul_impl=impl,
-                                         scan_impl="xla")
+        den = DenominatorComputation(graph, leaky=1e-5, matmul_impl=impl)
         sk = den._structured
         assert sk is not None
         F = sk.lay.F

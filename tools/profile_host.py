@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """profile_host — per-slice timing of the HOST side of the production
-training loop at flagship dims (VERDICT r5 item 1: the full loop runs
-117 ms/step against a ~60 ms device step, so ~57 ms of host work is
-exposed; this tool attributes it).
+training loop at flagship dims: when the full loop runs slower than the
+device step, the difference is exposed host work, and this tool
+attributes it.
 
 Slices per B-example batch:
   parse      ark bytes -> Example (native C++ parser + lazy views)

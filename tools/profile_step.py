@@ -18,8 +18,8 @@ Variants:
              sum (network fwd+bwd + optimizer + dispatch only)
   fwd-only   jit(forward + frame subsample + sum) — no grad, no update
 
-r3 results (TPU, B=128): optimizer extras = 0.98 ms (momentum +
-max-change + orthonormal ablation, kept below as --lean).
+--lean ablates the optimizer extras (momentum + max-change +
+orthonormal).
 
 Run from the repo root:  python tools/profile_step.py [--iters N]
 """

@@ -11,8 +11,11 @@ implied bound (compute vs memory).
 Stages: flagship forward, forward+grad, denominator fwd-bwd (production
 den.fst scale), numerator fwd-bwd, one full train step.
 
+Peaks come from utils.profiling.DEVICE_PEAKS (bf16 tensor-core rate and
+HBM bandwidth) for the device JAX reports; an unknown device is an error.
+
 Usage: python tools/roofline.py [--batch 128] [--frames 150]
-       [--peak-tflops 197] [--peak-gbs 819] [--stages fwd,bwd,den,num,step]
+       [--stages fwd,bwd,den,num,step]
 """
 
 import argparse
@@ -66,10 +69,6 @@ def main():
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--frames", type=int, default=150)
     ap.add_argument("--pdfs", type=int, default=3080)
-    ap.add_argument("--peak-tflops", type=float, default=197.0,
-                    help="bf16 MXU peak of the chip (v5e default)")
-    ap.add_argument("--peak-gbs", type=float, default=819.0,
-                    help="HBM bandwidth peak (v5e default)")
     ap.add_argument("--stages", default="fwd,bwd,den,num,step")
     ap.add_argument("--topology", choices=["phone-lm", "random"],
                     default="phone-lm",
@@ -86,7 +85,10 @@ def main():
     import jax.numpy as jnp
     from kaldi_fp16_tpu.models.model import build_model
     from kaldi_fp16_tpu.models.network import forward, init_params
+    from kaldi_fp16_tpu.utils.profiling import device_peaks
 
+    peaks = device_peaks(jax.devices()[0].device_kind)
+    peak_tflops, peak_gbs = peaks["bf16_tflops"], peaks["hbm_gbs"]
     rng = np.random.default_rng(0)
     B, T, P = args.batch, args.frames, args.pdfs
     model = build_model("configs/cnn_tdnn.xconfig")
@@ -105,7 +107,7 @@ def main():
         sec = measure(f, (params, feats, ivecs), args.iters)
         fl, by = cost(fwd_loss, (params, feats, ivecs))
         rows.append(report("forward", sec, fl, by,
-                           args.peak_tflops, args.peak_gbs))
+                           peak_tflops, peak_gbs))
 
     if "bwd" in stages:
         g = jax.jit(lambda p, f, i: jax.grad(fwd_loss)(p, f, i))
@@ -113,7 +115,7 @@ def main():
         fl, by = cost(lambda p, f, i: jax.grad(fwd_loss)(p, f, i),
                       (params, feats, ivecs))
         rows.append(report("forward+grad", sec, fl, by,
-                           args.peak_tflops, args.peak_gbs))
+                           peak_tflops, peak_gbs))
 
     if "den" in stages or "num" in stages or "step" in stages:
         from kaldi_fp16_tpu.chain.denominator import DenominatorComputation
@@ -149,7 +151,7 @@ def main():
                 lambda x: den._forward_backward(x, compute_grad=True),
                 (x_out,))
             rows.append(report("den fwd-bwd", sec, fl, by,
-                               args.peak_tflops, args.peak_gbs))
+                               peak_tflops, peak_gbs))
 
         if "num" in stages:
             from kaldi_fp16_tpu.chain.numerator import (
@@ -172,7 +174,7 @@ def main():
             sec = measure(jax.jit(fn), (x_out,), args.iters)
             fl, by = cost(fn, (x_out,))
             rows.append(report("num fwd-bwd", sec, fl, by,
-                               args.peak_tflops, args.peak_gbs))
+                               peak_tflops, peak_gbs))
 
         if "step" in stages:
             from kaldi_fp16_tpu.chain.objective import ChainTrainingOpts
@@ -213,7 +215,7 @@ def main():
             jax.block_until_ready(out[4].loss)
             sec = (time.perf_counter() - t0) / args.iters
             rows.append(report("train step", sec, 0.0, 0.0,
-                               args.peak_tflops, args.peak_gbs))
+                               peak_tflops, peak_gbs))
 
     for r in rows:
         print(json.dumps(r))

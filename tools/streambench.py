@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Streaming-inference latency/throughput bench (decode/streaming.py).
 
-Measures the serving-critical numbers on the attached TPU at flagship
+Measures the serving-critical numbers on the attached device at flagship
 scale: per-chunk encoder step latency, end-to-end pipeline chunk latency
 (encoder + incremental Viterbi feed), real-time factor, and the
 algorithmic latency (context lookahead + chunk).
